@@ -1,8 +1,8 @@
-"""awry_tpu: a TPU-native FM-index engine (JAX/XLA/Pallas).
+"""awry_tpu: an accelerator-resident FM-index engine in JAX.
 
 Brand-new framework with the capabilities of the AWRY reference library
 (FASTA/FASTQ -> FM-index; exact-match count/locate over DNA/RNA/protein),
-re-designed TPU-first: the index lives in HBM as structure-of-arrays
+re-designed for an accelerator: the index lives in device memory as structure-of-arrays
 bit-planes, rank is a vectorized masked-popcount over thousands of queries,
 and batches scale over device meshes with jax.sharding.
 

@@ -1,6 +1,6 @@
 """Alphabet codecs: ASCII <-> symbol-index <-> occurrence-bit-vector code.
 
-TPU-native re-design of the reference's three-way symbol encoding
+Vectorized re-design of the reference's three-way symbol encoding
 (reference: src/alphabet.rs:28-31, :169-330).  Instead of per-symbol match
 arms, every conversion here is a NumPy lookup table so whole texts and query
 batches convert in one vectorized pass, and the same tables are shipped to

@@ -1,6 +1,6 @@
 """Index construction: text -> suffix array -> device-layout FM-index arrays.
 
-TPU-native re-design of FmIndex::new (reference: src/fm_index.rs:142-268).
+Vectorized re-design of FmIndex::new (reference: src/fm_index.rs:142-268).
 The reference fills its block-of-structs BWT with a scalar pass over the
 suffix array; here every component is produced by whole-array NumPy passes
 (bit-plane packing via np.packbits, milestones via a per-block bincount +
@@ -214,7 +214,7 @@ def build_from_sequence_data(seq_data: SequenceData, args: FmBuildArgs) -> FmInd
         from ..ops.kmer import populate_kmer_table_device
 
         # minimal: the table build only rank-steps; shipping the locate /
-        # verify tables costs GBs of dead HBM at genome scale.
+        # verify tables costs GBs of dead device memory at genome scale.
         index.kmer_table = populate_kmer_table_device(
             to_device(index, minimal=True), kmer_len
         )

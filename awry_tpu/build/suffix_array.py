@@ -67,14 +67,6 @@ def _load_native():
                 ctypes.c_int64,
                 ctypes.c_int64,
             ]
-            lib.awry_sweep_tiles_u32.restype = ctypes.c_int
-            lib.awry_sweep_tiles_u32.argtypes = [
-                ctypes.POINTER(ctypes.c_uint32),
-                ctypes.c_int64,
-                ctypes.c_int64,
-                ctypes.POINTER(ctypes.c_uint32),
-                ctypes.c_int64,
-            ]
             lib.awry_fat_rows_u32.restype = ctypes.c_int
             lib.awry_fat_rows_u32.argtypes = [
                 ctypes.POINTER(ctypes.c_uint32),
@@ -123,6 +115,12 @@ def _load_native():
             _native_failed = True
             _lib_handle = None
         return _lib_handle
+
+
+def native_sais_available() -> bool:
+    """True when build_suffix_array runs the native SA-IS library (compiled
+    on first use); False when it falls back to NumPy prefix doubling."""
+    return _load_native() is not None
 
 
 def suffix_array_doubling(text_with_sentinel: np.ndarray) -> np.ndarray:
@@ -208,20 +206,15 @@ def build_suffix_array(text: np.ndarray | bytes, *, force_fallback: bool = False
     return sa
 
 
-def gather_rows_u32(src: np.ndarray, idx: np.ndarray, pad_rows: int = 0) -> np.ndarray:
+def gather_rows_u32(src: np.ndarray, idx: np.ndarray) -> np.ndarray:
     """Parallel dst[i, :] = src[idx[i], :] for uint32 [N, W] tables (numpy
-    fancy indexing fallback when the native library is unavailable).
-    ``pad_rows`` appends that many ZERO rows to the result (callers that
-    need an 8-word-divisible flat view avoid a second multi-GB pad copy)."""
+    fancy indexing fallback when the native library is unavailable)."""
     src = np.ascontiguousarray(src, dtype=np.uint32)
     lib = _load_native()
     if lib is None:
-        out = src[idx]
-        if pad_rows:
-            out = np.concatenate([out, np.zeros((pad_rows, src.shape[1]), np.uint32)])
-        return out
+        return src[idx]
     idx = np.ascontiguousarray(idx, dtype=np.uint32)
-    dst = np.zeros((idx.shape[0] + pad_rows, src.shape[1]), dtype=np.uint32)
+    dst = np.empty((idx.shape[0], src.shape[1]), dtype=np.uint32)
     lib.awry_gather_rows_u32(
         src.ctypes.data_as(ctypes.POINTER(ctypes.c_uint32)),
         idx.ctypes.data_as(ctypes.POINTER(ctypes.c_uint32)),
@@ -230,25 +223,6 @@ def gather_rows_u32(src: np.ndarray, idx: np.ndarray, pad_rows: int = 0) -> np.n
         ctypes.c_int64(src.shape[1]),
     )
     return dst
-
-
-def sweep_tiles_native(rows: np.ndarray, nt: int) -> np.ndarray | None:
-    """[nrows, w] -> [nt, w, 128] transposed-per-tile sweep layout in one
-    parallel native pass (None when the native library is unavailable)."""
-    lib = _load_native()
-    if lib is None:
-        return None
-    rows = np.ascontiguousarray(rows, dtype=np.uint32)
-    w = rows.shape[1]
-    out = np.empty((nt, w, 128), dtype=np.uint32)
-    lib.awry_sweep_tiles_u32(
-        rows.ctypes.data_as(ctypes.POINTER(ctypes.c_uint32)),
-        ctypes.c_int64(rows.shape[0]),
-        ctypes.c_int64(w),
-        out.ctypes.data_as(ctypes.POINTER(ctypes.c_uint32)),
-        ctypes.c_int64(nt),
-    )
-    return out
 
 
 def fat_rows_native(

@@ -4,7 +4,7 @@ The correctness anchor of the framework (SURVEY.md section 7, build-order
 step 1): a fully vectorized NumPy implementation of the windowed-BWT rank,
 backward search, count and locate with semantics pinned bit-for-bit to the
 reference (src/fm_index.rs:402-593, src/bwt.rs:110-271).  Every device
-engine (jnp, Pallas, sharded) is tested against this module, and this module
+engine (single-device, sharded, wide) is tested against this module, and this module
 is tested against a brute-force text-scan oracle.
 
 It is also a practical CPU fallback and is what populates the k-mer lookup

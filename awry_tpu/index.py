@@ -1,6 +1,6 @@
-"""FM-index data model: structure-of-arrays, designed for TPU HBM residency.
+"""FM-index data model: structure-of-arrays, designed for device-memory residency.
 
-This is the TPU-native re-expression of the reference's block-of-structs
+This is the device-side re-expression of the reference's block-of-structs
 windowed BWT (reference: src/bwt.rs:14-25, src/fm_index.rs:40-56).  Instead of
 interleaved 32-byte-aligned blocks, every component is a dense array so the
 whole index ships to the device as a pytree of jnp arrays and every query
@@ -44,8 +44,8 @@ FM_VERSION_NUMBER = 1  # reference: src/fm_index.rs:19
 class FmBuildArgs:
     """Build configuration (reference: FmBuildArgs, src/fm_index.rs:78-96).
 
-    TPU-specific additions live in the query-engine / sharding configs, not
-    here; this mirrors the reference's knobs.
+    Device-specific additions live in the query-engine / sharding configs,
+    not here; this mirrors the reference's knobs.
     """
 
     input_file_src: str | None = None
@@ -61,7 +61,7 @@ class FmBuildArgs:
     max_query_len: int | None = None
     remove_intermediate_suffix_array_file: bool = False  # fm_index.rs:263-265
     build_kmer_table_on_device: bool = False  # breadth-wise device build (ops/kmer.py)
-    # TPU locate knob: density of the text-order sampling marks that bound
+    # Device locate knob: density of the text-order sampling marks that bound
     # the device LF-walk (mark_ratio - 1 visits).  Independent of the .awry
     # row-sampled array (sa_ratio, format parity); denser marks trade
     # text_sampled_sa memory (4 B per marked position on device) for a

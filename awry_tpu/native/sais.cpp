@@ -1,6 +1,6 @@
 // SA-IS linear-time suffix array construction (Nong, Zhang & Chan 2009).
 //
-// TPU-native replacement for the reference's external `libsufr` Rust crate
+// Native replacement for the reference's external `libsufr` Rust crate
 // (reference: Cargo.toml:23, src/fm_index.rs:156-181).  Suffix-array
 // construction is inherently sequential/irregular and runs once per index on
 // the host, off the query hot path, so it lives in C++ behind a ctypes
@@ -428,29 +428,7 @@ int awry_kmer_fill_u32(const uint32_t* cnt, const uint32_t* inserts,
   return 0;
 }
 
-// Sweep-layout transpose (ops/sweep.py build_sweep_blocks): [nrows, w] rows
-// -> [nt, w, 128] transposed-per-128-row tiles, zero-padded past nrows.
-// NumPy's reshape/transpose/ascontiguousarray pipeline first-touches the
-// multi-GB output twice; this is one parallel pass.
-int awry_sweep_tiles_u32(const uint32_t* rows, int64_t nrows, int64_t w,
-                         uint32_t* out, int64_t nt) {
-#pragma omp parallel for schedule(static)
-  for (int64_t t = 0; t < nt; ++t) {
-    uint32_t* tile = out + t * w * 128;
-    for (int64_t j = 0; j < 128; ++j) {
-      int64_t r = t * 128 + j;
-      if (r < nrows) {
-        const uint32_t* src = rows + r * w;
-        for (int64_t i = 0; i < w; ++i) tile[i * 128 + j] = src[i];
-      } else {
-        for (int64_t i = 0; i < w; ++i) tile[i * 128 + j] = 0;
-      }
-    }
-  }
-  return 0;
-}
-
-// Slot fat-row packing (ops/device_index._build_verify_windows, text-order
+// Fat-row packing (ops/device_index._build_verify_windows, text-order
 // stage): g[p, i] = packed window of symbols at positions p-1-spw*i-t for
 // t in [0, spw), g[p, w] = p.  `tp` is the 4/8-bit packed text
 // (io layout: little-endian within u32 words); one parallel pass replaces

@@ -126,30 +126,16 @@ def lf_walk(index: FmDeviceIndex, rows: jax.Array, *, backstep_fn=None) -> jax.A
     """Walk each BWT row to its recovered text position.
 
     rows: uint32[N] -> text_pos uint32[N].  Uses the bounded marked walk
-    when the index carries mark data and no backstep override is given
-    (served by the sorted sweep when the index carries the sweep layout).
+    when the index carries mark data and no backstep override is given.
     """
     if backstep_fn is None and index.has_marks and index.mark_ratio == 1:
         # Every row is marked and mark_rank(row) == row: the walk is one
-        # SA read (text_sampled_sa is the full inverse-permuted SA).
-        # Fastest available read: sorted sweep (HBM-scale SA, dense batch)
-        # > 8-word-row gather + select (VMEM regime) > flat element gather.
-        from .sweep import _auto_interpret, window_sweep, window_sweep_suits
-
-        if window_sweep_suits(index.sa_sweep, rows.shape[0]):
-            return window_sweep(
-                index.sa_sweep, index.text_sampled_sa, rows, 2,
-                interpret=_auto_interpret(),
-            )[:, 0]
+        # SA read (text_sampled_sa is the full inverse-permuted SA), as an
+        # 8-word-row gather + select where marked_sa8 ships.
         if index.marked_sa8 is not None:
             rows8_t = index.marked_sa8[(rows >> 3).astype(jnp.int32)].T  # [8, N]
             return select_rows(rows8_t, 0, 8, (rows & jnp.uint32(7)).astype(jnp.int32))
         return index.text_sampled_sa[rows]
-    if backstep_fn is None and index.has_marks and index.blocks_sweep is not None:
-        from .sweep import marked_walk_sweep, sweep_suits
-
-        if sweep_suits(index, rows.shape[0]):
-            return marked_walk_sweep(index, rows)
     if backstep_fn is None and index.has_marks:
         return _marked_walk(index, rows)
     if backstep_fn is None:

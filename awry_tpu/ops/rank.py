@@ -1,18 +1,16 @@
 """Device rank (occurrence) primitives: the heart of backward search.
 
-This is the TPU-native form of the reference's SIMD kernel + windowed-BWT
-rank (src/simd_instructions.rs:98-121, src/bwt.rs:110-135, :226-271), shaped
-for the VPU's (sublane, lane) = (8, 128) geometry:
+The vectorized form of the reference's SIMD kernel + windowed-BWT rank
+(src/simd_instructions.rs:98-121, src/bwt.rs:110-135, :226-271):
 
-* the QUERY BATCH lives in the 128-wide lane dimension - every elementwise
-  op runs at full lane utilization (a [B, 8]-shaped layout would use 8/128
-  lanes);
-* each rank gathers its fused block row (windows + milestones in one HBM
-  line), and the batch of rows is transposed once to [row_words, B] so the
-  8 popcount lanes sit in the sublane dimension;
+* the QUERY BATCH is the minor (last) dimension - every elementwise op is a
+  contiguous vector op over the batch;
+* each rank gathers its fused block row (windows + milestones in one
+  128-byte line), and the batch of rows is transposed once to
+  [row_words, B] so the 8 popcount words are 8 batch-wide vectors;
 * all small-table lookups (symbol codes, milestones-within-row, prefix
-  sums) are where-select chains over compile-time constants instead of
-  dynamic-lane gathers, which TPUs execute as cross-lane shuffles.
+  sums) are where-select chains over compile-time constants, fused into the
+  surrounding elementwise code instead of separate table gathers.
 
 pos/starts/ends are uint32 [B]; sym is int32 [B].
 """
@@ -31,7 +29,7 @@ _FULL = 0xFFFFFFFF
 
 def select_u32(table, idx: jax.Array) -> jax.Array:
     """LUT via a where-select chain over small compile-time tables (no
-    cross-lane gather).  table: python/numpy ints; idx: int [B]."""
+    table gather).  table: python/numpy ints; idx: int [B]."""
     out = jnp.full(idx.shape, np.uint32(table[0]), dtype=jnp.uint32)
     for k in range(1, len(table)):
         out = jnp.where(idx == k, jnp.uint32(table[k]), out)
@@ -40,7 +38,7 @@ def select_u32(table, idx: jax.Array) -> jax.Array:
 
 def select_rows(rows_t: jax.Array, base: int, count: int, idx: jax.Array) -> jax.Array:
     """rows_t[base + idx, lane] for per-lane idx in [0, count), as a select
-    chain over the `count` candidate sublane rows."""
+    chain over the `count` candidate rows."""
     out = rows_t[base]
     for k in range(1, count):
         out = jnp.where(idx == k, rows_t[base + k], out)
@@ -73,7 +71,7 @@ def window_popcount_t(
         plane = rows_t[v * 8 : (v + 1) * 8] ^ xor_mask[None, :]
         occv = plane if occv is None else occv & plane
 
-    # Inclusive positional mask over the 8 sublane words: bits [0..=local]
+    # Inclusive positional mask over the 8 window words: bits [0..=local]
     # (mask inclusivity: src/simd_instructions.rs:106-107).
     word = (local >> 5)[None, :]
     lane = jax.lax.broadcasted_iota(jnp.uint32, (8, 1), 0)

@@ -14,7 +14,7 @@ beyond — but a single text over 2^32-1 symbols must still build AND serve
   wide: positions, milestones, prefix sums, SA values — shipped as SEPARATE
   uint64 side arrays rather than hi/lo pairs packed into the row.
 * Kernels run under `jax.experimental.enable_x64` (XLA emulates 64-bit
-  integer ops on TPU at ~2x the 32-bit cost).  This path trades peak speed
+  integer ops at up to ~2x the 32-bit cost).  This path trades peak speed
   for reach; production multi-genome serving stays on the federation.
 * Results are bit-exact with the host engine: same backward search, same
   marked / row-sampled LF-walks (ops/locate.py semantics).

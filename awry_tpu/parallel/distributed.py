@@ -41,8 +41,9 @@ def init_distributed(
 ) -> None:
     """Join the global JAX runtime (no-op for single-process runs).
 
-    On TPU pods the three arguments are auto-detected from the environment
-    and may be omitted; on CPU/GPU test rigs pass them explicitly.  Safe to
+    Pass the three arguments explicitly (the coordinator is any free
+    ``localhost:<port>`` on one host); only cluster launchers that export
+    them let the call omit them.  Safe to
     call twice (second call is ignored)."""
     if num_processes is not None and num_processes <= 1 and coordinator_address is None:
         return

@@ -3,7 +3,7 @@
 The reference's only concurrency is a rayon thread pool over queries
 (src/fm_index.rs:455-487); scaling here is a jax.sharding Mesh instead:
 axis 'data' shards query batches (pure data parallelism), axis 'shard'
-range-shards the BWT block arrays for indexes too large for one device's HBM
+range-shards the BWT block arrays for indexes too large for one device's memory
 (SURVEY.md section 5, distributed-backend row: Mode A replicate / Mode B
 range-shard).
 """

@@ -1,10 +1,9 @@
 """Partitioned FM-index federation: exact count/locate over texts beyond one
-index's 32-bit position space (pan-genome / metagenome scale, BASELINE.json
-config #5).
+index's 32-bit position space (pan-genome / metagenome scale).
 
 The device kernels address positions as uint32 (< 4 Gbp per index).  Larger
 corpora are split at record boundaries into partitions, each its own
-full FM-index (buildable/servable on its own host+chips).  Exactness across
+full FM-index (buildable/servable on its own host and card).  Exactness across
 partition boundaries is preserved with the overlap-tail construction:
 
 * the conceptual GLOBAL text is all records joined by the delimiter, exactly
@@ -219,27 +218,17 @@ class PartitionedFmIndex:
     def _part_engine(self, part: _Partition):
         """Lazily attach a device engine per partition, ROUND-ROBINED over
         the local devices so partition dispatches run concurrently (each
-        device serves its partitions independently; deployments place each
-        partition on its own host/chips)."""
+        device serves its partitions independently).  A failed engine build
+        raises; the host path is only taken on request (use_device=False)."""
         if part.engine is None:
-            try:
-                import jax
+            import jax
 
-                from ..ops.device_index import to_device
-                from ..ops.engine import FmQueryEngine
+            from ..ops.device_index import to_device
+            from ..ops.engine import FmQueryEngine
 
-                devices = jax.devices()
-                slot = next(i for i, q in enumerate(self.partitions) if q is part) % len(devices)
-                part.engine = FmQueryEngine(to_device(part.index, device=devices[slot]))
-            except Exception as e:
-                import sys
-
-                print(
-                    f"warning: device engine unavailable for partition at "
-                    f"global offset {part.global_start} ({e!r}); using host engine",
-                    file=sys.stderr,
-                )
-                part.engine = False
+            devices = jax.devices()
+            slot = next(i for i, q in enumerate(self.partitions) if q is part) % len(devices)
+            part.engine = FmQueryEngine(to_device(part.index, device=devices[slot]))
         return part.engine
 
     def _tail_counts(self, tail_syms: np.ndarray, enc_queries: list[np.ndarray]) -> np.ndarray:
@@ -270,8 +259,8 @@ class PartitionedFmIndex:
         pending = []
         encoded = None
         for part in self.partitions:
-            engine = self._part_engine(part) if use_device else None
-            if engine:
+            if use_device:
+                engine = self._part_engine(part)
                 if encoded is None:
                     encoded = engine.encode_queries(qbytes)
                 pending.append(engine.count_batch_dispatch(encoded))
@@ -293,9 +282,8 @@ class PartitionedFmIndex:
         nq = len(qbytes)
         results: list[list[tuple[int, int]]] = [[] for _ in qbytes]
         for part in self.partitions:
-            engine = self._part_engine(part) if use_device else None
-            if engine:
-                _, _, local, offsets = engine.count_locate_arrays(qbytes)
+            if use_device:
+                _, _, local, offsets = self._part_engine(part).count_locate_arrays(qbytes)
                 qidx = np.repeat(np.arange(nq, dtype=np.int64), np.diff(offsets))
             else:
                 hits = he.locate_batch(part.index, qbytes)
@@ -329,19 +317,8 @@ class PartitionedFmIndex:
         nq = len(qbytes)
         qidx_parts, rec_parts, loc_parts = [], [], []
         for part in self.partitions:
-            engine = self._part_engine(part)
-            if engine:
-                _, _, local, offsets = engine.count_locate_arrays(qbytes, cap=cap)
-                qidx = np.repeat(np.arange(nq, dtype=np.int64), np.diff(offsets))
-            else:
-                hits = he.locate_batch(part.index, qbytes)
-                local = np.array(
-                    [p for per_query in hits for _, p in per_query], dtype=np.int64
-                )
-                qidx = np.array(
-                    [qi for qi, per_query in enumerate(hits) for _ in per_query],
-                    dtype=np.int64,
-                )
+            _, _, local, offsets = self._part_engine(part).count_locate_arrays(qbytes, cap=cap)
+            qidx = np.repeat(np.arange(nq, dtype=np.int64), np.diff(offsets))
             keep = local < part.owned_len
             gpos = part.global_start + local[keep]
             rec = np.searchsorted(self.seq_starts, gpos, side="right") - 1

@@ -5,18 +5,18 @@ shared-memory only; SURVEY.md section 2 parallelism inventory):
 
 * Mode A (`ShardedFmEngine`, shard_size=1): the index is REPLICATED on every
   device; query batches shard over the 'data' mesh axis under shard_map.
-  Zero collectives on the hot path - the TPU analog of rayon's
-  embarrassingly-parallel query loop, at chip granularity.
+  Zero collectives on the hot path - the device analog of rayon's
+  embarrassingly-parallel query loop, at card granularity.
 
 * Mode B (shard_size>1): the BWT block arrays (planes + milestones) are
   RANGE-SHARDED over the 'shard' axis - each device owns a contiguous block
-  range of a too-big-for-one-HBM index.  A rank query is answered by the
+  range of an index too big for one card's memory.  A rank query is answered by the
   owning shard and broadcast with a psum (milestones are globally cumulative,
   so the owner's local value IS the global rank); non-owners contribute 0.
   Queries still shard over 'data', so the two axes compose.
 
-Both modes express collectives through jax.lax.psum over the mesh so XLA
-lays them onto ICI (SURVEY.md section 5, distributed-backend row).
+Both modes express collectives through jax.lax.psum over the mesh, which
+XLA lowers to the cards' collective library (NCCL over NVLink on one host).
 """
 
 from __future__ import annotations
@@ -32,7 +32,7 @@ from jax.sharding import NamedSharding, PartitionSpec as P
 from ..index import FmIndexData
 from ..ops.device_index import FmDeviceIndex, to_device
 from ..ops.locate import lf_walk
-from ..ops.rank import occurrence_from_rows, symbol_code_from_rows
+from ..ops.rank import occurrence, occurrence_from_rows, symbol_code_from_rows
 from ..ops.search import counts_from_ranges, search_ranges
 from .mesh import DATA_AXIS, SHARD_AXIS, make_mesh
 
@@ -76,14 +76,9 @@ def sharded_symbol_at(local: FmDeviceIndex, pos: jax.Array) -> jax.Array:
 
 
 def _sharded_update_fn(local: FmDeviceIndex):
-    """LF-mapping range update with psum-merged ranks.
-
-    When the local shard carries a sweep layout (blocks_sweep, built
-    per-shard over the LOCAL block range) and the batch is dense enough,
-    both endpoints' ranks are served by the sorted-sweep kernel over the
-    local shard — the same engine that beat plain gathers 7.5x on one chip
-    (round-2 verdict task 5: Mode B gets the sweep) — then psum-merged.
-    Sparse batches and sweep-less indexes take the plain local gather."""
+    """LF-mapping range update with psum-merged ranks: each endpoint is
+    ranked from this device's local block range (unowned positions read
+    block 0 and contribute 0), then one psum per endpoint merges them."""
 
     def update(starts, ends, sym):
         c = local.prefix_sums[sym]
@@ -95,33 +90,8 @@ def _sharded_update_fn(local: FmDeviceIndex):
         la, lb = pos_a - base, ends - base
         own_a = (pos_a >= base) & (la < jnp.uint32(nb_local * 256))
         own_b = (ends >= base) & (lb < jnp.uint32(nb_local * 256))
-        ca = jnp.where(own_a, la, jnp.uint32(0))
-        cb = jnp.where(own_b, lb, jnp.uint32(0))
-
-        from ..ops.rank import occurrence
-        from ..ops.sweep import _auto_interpret, occurrence_sweep_pair, sweep_suits
-
-        if local.blocks_sweep is not None and sweep_suits(local, starts.shape[0]):
-            # Both endpoints in ONE paired sweep over the local shard.  The
-            # endpoints may be owned by DIFFERENT shards: unowned positions
-            # clamp to 0, which keeps the pair inside the first window
-            # whenever the owned one is nearby — cross-shard straddles just
-            # take the per-chunk fixup (plain local rank) like any
-            # uncovered chunk.
-            occ_a, occ_b, cov = occurrence_sweep_pair(
-                local, ca, cb, sym, interpret=_auto_interpret()
-            )
-
-            def fixup():
-                return (
-                    jnp.where(cov, occ_a, occurrence(local, ca, sym)),
-                    jnp.where(cov, occ_b, occurrence(local, cb, sym)),
-                )
-
-            occ_a, occ_b = jax.lax.cond(jnp.all(cov), lambda: (occ_a, occ_b), fixup)
-        else:
-            occ_a = occurrence(local, ca, sym)
-            occ_b = occurrence(local, cb, sym)
+        occ_a = occurrence(local, jnp.where(own_a, la, jnp.uint32(0)), sym)
+        occ_b = occurrence(local, jnp.where(own_b, lb, jnp.uint32(0)), sym)
         occ_a = jax.lax.psum(jnp.where(own_a, occ_a, jnp.uint32(0)), SHARD_AXIS)
         occ_b = jax.lax.psum(jnp.where(own_b, occ_b, jnp.uint32(0)), SHARD_AXIS)
         return c + occ_a, c + occ_b - jnp.uint32(1)
@@ -162,7 +132,6 @@ class ShardedFmEngine:
         *,
         shard_size: int = 1,
         locate_cap: int = 8,
-        use_sweep: bool | None = None,
     ):
         self.mesh = mesh if mesh is not None else make_mesh(shard_size=shard_size)
         self.num_shards = self.mesh.shape[SHARD_AXIS]
@@ -171,14 +140,6 @@ class ShardedFmEngine:
 
         replicated = NamedSharding(self.mesh, P())
         block_sharded = NamedSharding(self.mesh, P(SHARD_AXIS))
-
-        if use_sweep is None:
-            # Same regime heuristic as the single-chip engine, per shard.
-            use_sweep = (
-                index.has_marks
-                and index.planes.nbytes // max(1, self.num_shards) >= 8 * 1024 * 1024
-                and jax.default_backend() == "tpu"
-            )
 
         host = index
         if self.num_shards > 1:
@@ -212,39 +173,6 @@ class ShardedFmEngine:
         self.device_index = to_device(
             host, sharding=placement, ship_row_sa=self.num_shards > 1 or None
         )
-        if self.num_shards > 1 and use_sweep:
-            # Per-shard sorted-sweep layout of the LOCAL block range: each
-            # shard's sweep array is built independently from its fused
-            # slice (its internal tile padding never aliases a neighbour's
-            # blocks), then stacked so P(SHARD) hands shard i exactly its
-            # own layout.  Mode B rank steps are then served by the same
-            # sweep kernel as the single-chip hot path.
-            from ..ops.device_index import build_fused_blocks
-            from ..ops.sweep import build_sweep_blocks
-
-            fused = build_fused_blocks(host)
-            nb_loc = fused.shape[0] // self.num_shards
-            stack = np.concatenate(
-                [
-                    build_sweep_blocks(fused[i * nb_loc : (i + 1) * nb_loc])
-                    for i in range(self.num_shards)
-                ],
-                axis=0,
-            )
-            self.device_index = dataclasses.replace(
-                self.device_index,
-                blocks_sweep=jax.device_put(stack, block_sharded),
-            )
-        elif use_sweep:
-            from ..ops.device_index import build_fused_blocks
-            from ..ops.sweep import build_sweep_blocks
-
-            self.device_index = dataclasses.replace(
-                self.device_index,
-                blocks_sweep=jax.device_put(
-                    build_sweep_blocks(build_fused_blocks(host)), replicated
-                ),
-            )
         self.blocks_per_shard = self.device_index.blocks.shape[0] // self.num_shards
 
         index_specs = jax.tree.map(lambda _: P(), self.device_index)
@@ -255,11 +183,6 @@ class ShardedFmEngine:
             **(
                 {"blocks_search": shard_spec}
                 if self.device_index.blocks_search is not None
-                else {}
-            ),
-            **(
-                {"blocks_sweep": shard_spec}
-                if self.device_index.blocks_sweep is not None
                 else {}
             ),
         )
@@ -454,9 +377,8 @@ class ShardedFmEngine:
             o_within = np.arange(o_total, dtype=np.int64) - np.repeat(o_cum[:-1], o_counts)
             all_rows = (np.repeat(o_starts, o_counts) + o_within).astype(np.uint32)
             dst = np.repeat(offsets[:-1][over], o_counts) + o_within
-            # Slabbed dispatches (ops/engine._assemble_flat_positions): one
-            # giant walk over a repetitive text's expanded hits would exceed
-            # the sweep kernels' SMEM window-id budget.
+            # Slabbed dispatches (ops/engine._OVERCAP_WALK_SLAB): bounded
+            # device memory per walk over a repetitive text's expanded hits.
             from ..ops.engine import _OVERCAP_WALK_SLAB, _bucket
 
             for s0 in range(0, o_total, _OVERCAP_WALK_SLAB):

@@ -2,8 +2,8 @@
 
 Replicates run_pangenome's build block (same corpus streams, same params
 digest) but skips serving entirely: pure CPU work (SA-IS worker pool + host
-k-mer tables at k=11), safe to run while the TPU is busy.  bench.py then
-serves config #5 from this cache under the driver deadline.
+k-mer tables at k=11), safe to run while the card is busy.  bench.py then
+serves config #5 from this cache under its deadline.
 
 Run: python scripts/build_pangenome_cache.py
 """

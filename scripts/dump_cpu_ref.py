@@ -1,7 +1,7 @@
 """Dump the chr1 bench index + queries for the AWRY CPU reference
 microbenchmark (awry_tpu/native/awry_cpu_ref.cpp) and run it.
 
-Produces the measured vs_baseline denominator (round-3 verdict task 6):
+Produces the measured vs_baseline denominator:
 AWRY's own algorithm (AVX2 windowed rank, full backward search, row-sampled
 locate walk, thread-parallel over queries) on THIS host, fed with the real
 bench index bytes.  Writes BASELINE_CPU.json at the repo root; bench.py

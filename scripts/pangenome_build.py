@@ -1,6 +1,6 @@
 """Pan-genome federation demo: >= 8 Gbp partitioned build + exact queries.
 
-BASELINE.json config #5 at synthetic scale: a multi-record corpus beyond the
+bench.py's pan-genome config at synthetic scale: a multi-record corpus beyond the
 uint32 position space of a single index, split at record boundaries into
 per-partition FM-indexes (awry_tpu/parallel/partitioned.py) built in
 PARALLEL worker processes, then queried with planted-occurrence oracles:
@@ -10,8 +10,8 @@ PARALLEL worker processes, then queried with planted-occurrence oracles:
   exact global counts/locations are known (collision odds ~ N / 4^30);
 * absent queries (random 30-mers, not planted) must count 0.
 
-Host-only by default (the partition engines would not fit one device's HBM
-anyway at this scale without range-sharding each).  Results + timings are
+Host-only by default (the partition engines would not fit one device's
+memory at this scale without range-sharding each).  Results + timings are
 appended to pangenome_results.json.
 
 Run: python scripts/pangenome_build.py [total_gbp] [num_partitions] [workers]

@@ -1,8 +1,8 @@
-"""Round-4 verdict task 4 proof: build and SERVE a >4.3 Gbp single index.
+"""Build and SERVE a >4.3 Gbp single index.
 
 Builds a 4.4e9-symbol synthetic DNA text (past uint32 positions: the
 reference's u64 capability, src/search.rs:7), serves count+locate on the
-TPU through FmQueryEngine's wide (64-bit) path with host-oracle parity
+device through FmQueryEngine's wide (64-bit) path with host-oracle parity
 checks, and round-trips the index through the .awry format at that scale.
 Writes wide_proof_results.json.
 

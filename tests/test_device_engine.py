@@ -279,10 +279,10 @@ def test_crumb_wire_selection_and_parity(rng):
 
 
 def test_vmem_regime_gate_skips_fat_tables(rng, monkeypatch):
-    """Above VMEM_REGIME_MAX_ROWS the per-BWT-row extras (verify_windows fat
-    rows, marked_sa8) must NOT ship - at chr1 scale they cost ~25 GB of HBM
-    (the round-2 fresh-build OOM) - and the engine must still answer exactly
-    through the walk + text-compare fallback."""
+    """Past FAT_TABLE_MAX_BYTES the per-BWT-row extras (verify_windows fat
+    rows, marked_sa8) must NOT ship - at chr1 scale they cost ~9 GB of
+    device memory - and the engine must still answer exactly through the
+    walk + text-compare fallback."""
     import awry_tpu.ops.device_index as di
 
     text = random_seq(Alphabet.NUCLEOTIDE, rng, 1500)
@@ -291,10 +291,9 @@ def test_vmem_regime_gate_skips_fat_tables(rng, monkeypatch):
     )
     assert to_device(index).verify_windows is not None  # under the gate
 
-    monkeypatch.setattr(di, "VMEM_REGIME_MAX_ROWS", 64)
+    monkeypatch.setattr(di, "FAT_TABLE_MAX_BYTES", 64 * di.FAT_ROW_BYTES)
     dev = to_device(index)
     assert dev.verify_windows is None
-    assert dev.vw_sweep is None and dev.vw_flat is None
     assert dev.marked_sa8 is None
 
     engine = FmQueryEngine(dev)
@@ -333,8 +332,8 @@ def test_minimal_device_index_serves_ranges(rng):
 def test_overcap_walk_is_slabbed(rng, monkeypatch):
     """Over-cap locate expansion runs in bounded walk dispatches: repetitive
     texts expand to tens of millions of rows, and one dispatch that size
-    exceeds the sweep kernels' SMEM window-id budget (round-3 chr1rep
-    compile failure).  With a tiny slab the results must be unchanged."""
+    would hold a gathered row per hit in device memory at once.  With a
+    tiny slab the results must be unchanged."""
     import awry_tpu.ops.engine as eng_mod
 
     # ~40 copies of one repeat: every repeat-drawn query has ~40 hits.
@@ -381,13 +380,58 @@ def test_lean_engine_parity_and_footprint(rng):
         assert int(c) == len(kmap[q])
 
 
-def test_sweep_request_gate():
-    """Sweep suitability caps the request count: past MAX_SWEEP_REQUESTS the
-    per-chunk window ids would overflow SMEM, so callers must see False."""
-    from awry_tpu.ops.sweep import MAX_SWEEP_REQUESTS, window_sweep_suits
 
-    class _Arr:
-        shape = (1 << 20, 8, 128)
+@pytest.mark.parametrize("mark_ratio", [1, 2, 8])
+@pytest.mark.parametrize("fat_gate", ["fat_rows", "walk_compare"])
+@pytest.mark.parametrize("alphabet", ALPHABETS)
+def test_plain_read_parity(alphabet, fat_gate, mark_ratio, rng, monkeypatch, tmp_path):
+    """Every plain-read path of the default engine against the host engine:
+    the k-mer seed gather, post-seed rank gathers, the SA read (mark 1: the
+    8-word-row or element gather; mark > 1: the bounded marked walk), and
+    either the fat-row gather or the walk + text compare (fat tables ship
+    only at mark 1 and under FAT_TABLE_MAX_BYTES).  locate_mark_ratio
+    changes the walk, never results, and survives the artifact round trip."""
+    import awry_tpu.ops.device_index as di
+    from awry_tpu.io.artifact import load_artifact, save_artifact
 
-    assert window_sweep_suits(_Arr(), MAX_SWEEP_REQUESTS)
-    assert not window_sweep_suits(_Arr(), MAX_SWEEP_REQUESTS + 1)
+    if fat_gate == "walk_compare":
+        monkeypatch.setattr(di, "FAT_TABLE_MAX_BYTES", 0)
+    n, qlen = (4000, 24) if alphabet is Alphabet.NUCLEOTIDE else (2500, 10)
+    seq = random_seq(alphabet, rng, n)
+    index = build_from_records(
+        [("p", seq)],
+        FmBuildArgs(alphabet=alphabet, lookup_table_kmer_len=3, locate_mark_ratio=mark_ratio),
+    )
+    assert index.resolved_mark_ratio == mark_ratio
+    assert index.text_sampled_sa.shape[0] == -(-index.bwt_len // mark_ratio)
+    engine = FmQueryEngine(index)
+    dev = engine.device_index
+    fat = mark_ratio == 1 and fat_gate == "fat_rows"
+    assert (dev.verify_windows is not None) == fat
+    assert (dev.marked_sa8 is not None) == fat
+    assert engine._verify_enabled
+
+    queries = [seq[s : s + qlen] for s in rng.integers(0, n - qlen, size=96)]
+    queries += [seq[:qlen], seq[-qlen:], seq[10:14], random_seq(alphabet, rng, qlen), b""]
+    counts, seq_idx, local, offsets = engine.count_locate_arrays(queries, cap=2)
+    for i, q in enumerate(queries):
+        assert int(counts[i]) == he.count(index, q), q
+        got = list(zip(seq_idx[offsets[i] : offsets[i + 1]].tolist(),
+                       local[offsets[i] : offsets[i + 1]].tolist()))
+        assert sorted(got) == sorted(he.locate(index, q)), q
+
+    save_artifact(index, str(tmp_path / "i.npz"))
+    assert load_artifact(str(tmp_path / "i.npz")).resolved_mark_ratio == mark_ratio
+
+
+def test_device_path_is_plain_jax():
+    """The library is plain JAX: no Pallas kernel written for another
+    accelerator, no interpret-mode kernel call, no per-backend switch."""
+    import pathlib
+
+    root = pathlib.Path(__file__).resolve().parents[1] / "awry_tpu"
+    banned = ("pallas.tpu", "pltpu", "interpret=", 'default_backend() == "tpu"', "use_sweep")
+    for path in root.rglob("*.py"):
+        text = path.read_text()
+        for word in banned:
+            assert word not in text, f"{path}: {word}"

@@ -21,13 +21,13 @@ def _engine(seq, *, alphabet=Alphabet.NUCLEOTIDE, k=4):
     index = build_from_records(
         [("v", seq)], FmBuildArgs(alphabet=alphabet, lookup_table_kmer_len=k)
     )
-    eng = FmQueryEngine(index, use_sweep=True)
+    eng = FmQueryEngine(index)
     assert eng._verify_enabled
     return index, eng
 
 
 def _check_against_classic(index, eng, queries, cap=4):
-    classic = FmQueryEngine(index, use_sweep=False, use_verify=False)
+    classic = FmQueryEngine(index, use_verify=False)
     assert not classic._verify_enabled
     c1, s1, l1, o1 = eng.count_locate_arrays(queries, cap=cap)
     c2, s2, l2, o2 = classic.count_locate_arrays(queries, cap=cap)
@@ -168,19 +168,15 @@ def test_verify_wide_group_budget_overflow(rng):
 
 
 def test_seeded_chain_parity(rng):
-    """The sorted-domain seeded chain (sweep.seeded_pair_chain: one sort
-    per post-seed rank step, symbols in the payload) must trace at chain-
-    eligible shapes (steps = s - k <= 6) and stay bit-exact vs the classic
-    engine — including seed-miss lanes (canonicalized empty), queries going
-    empty mid-chain, N symbols in post-seed steps, and length-k lanes.  A
-    batch with a short (<k) query must still be exact through the runtime
-    generic-loop fallback arm."""
-    import awry_tpu.ops.sweep as sweep_mod
-
+    """The all-seeded loop arm (every lane k-mer-seeded: the post-seed rank
+    steps start at k with no per-step any(active) reduce) must stay
+    bit-exact vs the classic engine — including seed-miss lanes
+    (canonicalized empty), queries going empty mid-chain, N symbols in
+    post-seed steps, and length-k lanes.  A batch with a short (<k) query
+    must still be exact through the generic masked-loop arm."""
     seq = random_seq(Alphabet.NUCLEOTIDE, rng, 60_000)
-    index, eng = _engine(seq, k=6)  # s = 10 -> 4 chain steps
+    index, eng = _engine(seq, k=6)  # s = 10 -> 4 post-seed steps
     assert eng._verify_s - index.kmer_len <= 6
-    before = sweep_mod.TRACE_COUNTS["seeded_chain"]
     queries = [seq[s : s + 24] for s in rng.integers(0, 59_000, size=128)]
     queries += [
         b"TTTTTTGGGGGGCCCCAAAAACGT",  # almost surely absent: empties mid-chain
@@ -189,9 +185,6 @@ def test_seeded_chain_parity(rng):
         seq[3000:3024],
     ]
     _check_against_classic(index, eng, queries)
-    assert sweep_mod.TRACE_COUNTS["seeded_chain"] > before, (
-        "chain-eligible shape never traced the seeded chain"
-    )
     # Short query in the batch: all_dense is false, the generic arm serves.
     _check_against_classic(index, eng, queries[:8] + [seq[40:43]])
 
